@@ -107,13 +107,13 @@ class ClassifyParams:
 
 @dataclasses.dataclass(frozen=True)
 class QueryPipelineParams:
-    """Fixed-shape knobs of the on-device query pipeline (TPU-specific).
+    """Fixed-shape knobs of the on-device query pipeline.
 
-    The reference uses unbounded std::vectors per read; a TPU kernel needs
-    static shapes. ``max_locations_per_query`` bounds the per-read match list
-    (location gather buffer). If a read's matches exceed it, the tail
-    features' locations are dropped deterministically and a counter is
-    incremented (visible in query stats).
+    The reference uses unbounded std::vectors per read; a jitted device
+    program needs static shapes. ``max_locations_per_query`` bounds the
+    per-read match list (location gather buffer). If a read's matches
+    exceed it, the tail features' locations are dropped deterministically
+    and a counter is incremented (visible in query stats).
     """
     batch_size: int = 4096
     max_query_len: int = 320      # reads padded/bucketed to this length

@@ -1,6 +1,6 @@
 """Database facade: sketching params + feature table + taxonomy + targets.
 
-The TPU-native analogue of sketch_database (src/sketch_database.h:99-1242).
+The analogue of sketch_database (src/sketch_database.h:99-1242).
 One Database object = one shard (the reference's per-rank database file
 ``<name>_<rank>``, src/mode_build.cpp:1079-1091). Taxonomy and target
 metadata are fully replicated across shards (src/sketch_database.h:544-560);
@@ -168,8 +168,8 @@ class Database:
         The shard files are written uncompressed (save()), so each member
         is a raw .npy at a fixed offset inside the zip; mapping them keeps
         multi-GB feature tables out of resident memory during the fused
-        multi-shard load (config-3 query load peaked at 38 GB RSS in
-        round 4 — pages of mapped tables are clean/evictable instead).
+        multi-shard load (pages of mapped tables are clean and evictable
+        instead of resident).
         """
         import struct
         import zipfile
@@ -188,8 +188,10 @@ class Database:
                 base = info.header_offset + 30 + fnlen + extralen
                 fh.seek(base)
                 version = npfmt.read_magic(fh)
-                shape, fortran, dtype = npfmt._read_array_header(fh,
-                                                                 version)
+                read_header = (npfmt.read_array_header_1_0
+                               if version == (1, 0)
+                               else npfmt.read_array_header_2_0)
+                shape, fortran, dtype = read_header(fh)
                 if fortran:
                     return None
                 out[name] = np.memmap(path, dtype=dtype, mode="r",

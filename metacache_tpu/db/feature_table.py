@@ -1,4 +1,4 @@
-"""Dense sorted feature table — the TPU-native replacement for the
+"""Dense sorted feature table — the device-friendly replacement for the
 reference's hopscotch-style hash multimap (src/hash_multimap.h:192-1124)
 and its chunk allocator (src/chunk_allocator.h).
 
@@ -253,7 +253,7 @@ class FeatureTable:
         order, so the device lookup can gather half the bytes and run a
         single-key merge sort (ops/lookup.py). Mirrors the reference's
         packed `location{target, window}` struct (src/sketch_database.h:
-        157-189) — there for storage, here for HBM bandwidth.
+        157-189) — there for storage, here for device-memory bandwidth.
 
         win_bits may be forced (sharded engine: all shards must agree on
         one packing so the merged device program has a single static shift).

@@ -2,7 +2,7 @@
 
 The reference stores taxa in a ``std::set<taxon>`` with pointer-linked
 lineages and a mutex-guarded ranked-lineage cache
-(src/taxonomy.h:253-806). The TPU design replaces all of that with dense
+(src/taxonomy.h:253-806). This design replaces all of that with dense
 int32 arrays indexed by *node index* (not NCBI taxid):
 
   - ``taxid[i]``      NCBI taxon id (negative ids = sequence-level taxa,

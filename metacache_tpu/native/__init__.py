@@ -1,14 +1,17 @@
 """Native (C++) host runtime for metacache-tpu.
 
 `mcio` — batched FASTA/FASTQ reading + 2-bit encoding/packing directly into
-the device batch layout (see mcio.cpp). The library is compiled on first
-use with g++ and cached next to this file; all callers must handle
-`load_mcio() is None` and fall back to the pure-Python readers in
-io/sequence_io.py (identical semantics, reference: src/sequence_io.cpp).
+the device batch layout (see mcio.cpp). The library is compiled from
+mcio.cpp with g++ at first use, under a name keyed by a hash of the source
+and the compile command, so a binary built from other source is never
+loaded. Library callers handle `load_mcio() is None` by falling back to the
+pure-Python readers in io/sequence_io.py (identical semantics, reference:
+src/sequence_io.cpp).
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import sys
@@ -19,7 +22,8 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "mcio.cpp")
-_LIB = os.path.join(_DIR, "libmcio.so")
+_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+_LIBS = ("-lz", "-lpthread")
 
 _lock = threading.Lock()
 _lib = None
@@ -28,17 +32,27 @@ _lib_failed = False
 PAIRING_CODE = {"none": 0, "": 0, None: 0, "files": 1, "sequences": 2}
 
 
-def _compile() -> bool:
-    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", _SRC,
-           "-o", _LIB + ".tmp", "-lz", "-lpthread"]
+def library_path() -> str:
+    """Path of the library built from the current mcio.cpp and flags."""
+    h = hashlib.sha256()
+    with open(_SRC, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(("g++",) + _FLAGS + _LIBS).encode())
+    return os.path.join(_DIR, f"libmcio-{h.hexdigest()[:16]}.so")
+
+
+def _compile(lib_path: str) -> bool:
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    cmd = ["g++", *_FLAGS, _SRC, "-o", tmp, *_LIBS]
     try:
-        r = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
-    except (OSError, subprocess.TimeoutExpired):
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        print(f"mcio build failed: {e}", file=sys.stderr)
         return False
     if r.returncode != 0:
         print("mcio build failed:", r.stderr[-800:], file=sys.stderr)
         return False
-    os.replace(_LIB + ".tmp", _LIB)
+    os.replace(tmp, lib_path)
     return True
 
 
@@ -52,13 +66,12 @@ def load_mcio():
     with _lock:
         if _lib is not None or _lib_failed:
             return _lib
-        if not os.path.exists(_LIB) or \
-                os.path.getmtime(_LIB) < os.path.getmtime(_SRC):
-            if not _compile():
-                _lib_failed = True
-                return None
+        path = library_path()
+        if not os.path.exists(path) and not _compile(path):
+            _lib_failed = True
+            return None
         try:
-            lib = ctypes.CDLL(_LIB)
+            lib = ctypes.CDLL(path)
         except OSError:
             _lib_failed = True
             return None

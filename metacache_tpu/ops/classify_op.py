@@ -23,13 +23,13 @@ import jax.numpy as jnp
 
 def _lineage_rows(ranked_lineage, tax):
     """ranked_lineage[tax] without the per-element gather when the table is
-    small: [B] word-gathers cost ~75-170 ns/element on this backend
-    regardless of table size (tools/exp_r4_gathermap.py), so a [B, N]
-    one-hot f32 matmul (exact for entries < 2^26 via a 13-bit split) is
-    ~5-10x faster for the small per-engine candidate-lineage tables
-    (QueryEngine._lineage_small). Entries must be < 2^26 — guaranteed for
-    node indices whenever the full taxonomy has < 2^26 nodes (the same
-    bound the packed summary word already requires)."""
+    small: a [B, N] one-hot f32 matmul (exact for entries < 2^26 via a
+    13-bit split) stands in for the row gather on the small per-engine
+    candidate-lineage tables (QueryEngine._lineage_small). Whether it
+    beats the plain gather on a GPU is not measured yet. Entries must be
+    < 2^26 — guaranteed for node indices whenever the full taxonomy has
+    < 2^26 nodes (the same bound the packed summary word already
+    requires)."""
     N, R = ranked_lineage.shape
     if N > 2048:
         return ranked_lineage[tax]
@@ -38,9 +38,9 @@ def _lineage_rows(ranked_lineage, tax):
     lo = (ranked_lineage & 0x1FFF).astype(jnp.float32)
     hi = (ranked_lineage >> 13).astype(jnp.float32)
     # Precision.HIGHEST: the 13-bit chunks (0..8191) must multiply-accumulate
-    # exactly; the TPU default lowers f32 dots to single-pass bf16 (exact
-    # only to 256), which would silently round node indices on taxonomies
-    # with >2^8 nodes (ADVICE r4). Full f32 is exact to 2^24 > 2^13.
+    # exactly; a lower precision (bf16 passes, or TF32 on GPUs, exact only
+    # to 2^11) would silently round node indices. Full f32 is exact to
+    # 2^24 > 2^13.
     lor = jnp.dot(oh, lo, preferred_element_type=jnp.float32,
                   precision=jax.lax.Precision.HIGHEST)
     hir = jnp.dot(oh, hi, preferred_element_type=jnp.float32,

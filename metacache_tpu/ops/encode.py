@@ -9,11 +9,11 @@ Reference behaviors mirrored (not translated):
     full windows every `stride`, plus a tail window if characters remain
     (src/dna_encoding.h:261-276)
 
-TPU-first design: sequences are shipped to the device as raw uint8 bytes;
-the char->code LUT, the rolling k-mer build (k static => k unrolled
-shift-or steps over static slices), the reverse complement and the hash are
-all elementwise VPU ops over a [num_windows, window_size] tensor, fused by
-XLA into a single pass.
+Device design: sequences are shipped to the device as packed bytes; the
+char->code LUT, the rolling k-mer build (k static => k unrolled shift-or
+steps over static slices), the reverse complement and the hash are all
+elementwise ops over a [num_windows, window_size] tensor, fused by XLA into
+a single pass.
 """
 from __future__ import annotations
 

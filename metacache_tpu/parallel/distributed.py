@@ -12,7 +12,8 @@ Reference mapping (SURVEY.md §2 "Distributed communication backend"):
   every rank reads the same queries    every process streams the same read
     (querying.h:749-830)                files into replicated batches
   log2(P) candidate tree reduce        all_gather over the global mesh
-    (querying.h:892-1071)               (ICI within a slice, DCN across)
+    (querying.h:892-1071)               (NVLink within a host, the network
+                                        across hosts)
   rank 0 writes output                 process 0 writes output
 
 Single-process use is untouched: `maybe_initialize` is a no-op unless the
@@ -33,7 +34,10 @@ def maybe_initialize() -> tuple:
     MC_COORDINATOR=<host:port>  coordinator address (process 0's)
     MC_NUM_PROCS=<P>            total process count
     MC_PROC_ID=<r>              this process's id
-    MC_LOCAL_DEVICE_IDS         optional comma-separated local device ids
+    MC_LOCAL_DEVICE_IDS         comma-separated local device ids; several
+                                processes on one host must each name
+                                their own card (else every process
+                                reserves memory on every visible card)
 
     Returns (process_index, process_count).
     """

@@ -1,13 +1,14 @@
 #!/usr/bin/env bash
-# Distributed database build on a TPU pod slice.
+# Distributed database build, one process per host.
 #
-# TPU-native counterpart of the reference's SLURM build harness
+# Counterpart of the reference's SLURM build harness
 # (script/ft/BuildGeneric_FT.sh + Run_Build_*_{8,16,32,64}.sh): instead of
-# `srun -n P metacache_mpi build`, every TPU host runs the same command and
-# jax.distributed derives (process_id, num_processes) from the TPU runtime
-# metadata; targets are round-robin sharded by `t % num_processes` exactly
-# like sketch_database::add_target_distributed (sketch_database.h:519-563),
-# and each host writes its own shard file <db>_<proc>.
+# `srun -n P metacache_mpi build`, every process runs the same command with
+# MC_COORDINATOR/MC_NUM_PROCS/MC_PROC_ID set (or under a cluster manager
+# jax.distributed detects); targets are round-robin sharded by
+# `t % num_processes` exactly like sketch_database::add_target_distributed
+# (sketch_database.h:519-563), and each process writes its own shard file
+# <db>_<proc>.
 #
 # USE: build_generic.sh <dataset-name> <genomes-dir> <taxonomy-dir> [db-dir]
 set -euo pipefail
@@ -18,9 +19,6 @@ TAXONOMY="${3:?directory with NCBI nodes.dmp/names.dmp/merged.dmp}"
 DBDIR="${4:-./databases}"
 
 mkdir -p "$DBDIR"
-
-# persistent XLA compile cache: first compile of each program shape is slow
-export JAX_COMPILATION_CACHE_DIR="${JAX_COMPILATION_CACHE_DIR:-/tmp/jax_cache}"
 
 exec python -m metacache_tpu.cli build \
     "$DBDIR/DB_${DATASET}.db" "$GENOMES" \

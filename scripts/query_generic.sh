@@ -1,5 +1,5 @@
 #!/usr/bin/env bash
-# Distributed query on a TPU pod slice with the reference's canonical flags
+# Distributed query with the reference's canonical flags
 # (script/ft/QueryGeneric_FT.sh:121):
 #   -lowest species -abundance-per species -pairfiles -maxcand 4
 #   -hitmin 4 -hitdiff 80 -query-limit 25000
@@ -12,8 +12,6 @@ FWD="${2:?forward paired FASTQ}"
 REV="${3:?reverse paired FASTQ}"
 OUT="${4:?output file}"
 QUERY_LIMIT="${5:-25000}"
-
-export JAX_COMPILATION_CACHE_DIR="${JAX_COMPILATION_CACHE_DIR:-/tmp/jax_cache}"
 
 exec python -m metacache_tpu.cli query "$DB" "$FWD" "$REV" \
     -pairfiles \

@@ -14,13 +14,12 @@ from tests import util_mockdata as mock
 
 
 def run_cli(args, extra_env=None):
-    env = dict(os.environ, METACACHE_PLATFORM="cpu", PYTHONPATH="/root/repo",
-               XLA_FLAGS=os.environ.get("XLA_FLAGS", "")
-               + " --xla_force_host_platform_device_count=8")
+    env = mock.cli_env(XLA_FLAGS=os.environ.get("XLA_FLAGS", "")
+                       + " --xla_force_host_platform_device_count=8")
     if extra_env:
         env.update(extra_env)
     return subprocess.run([sys.executable, "-m", "metacache_tpu.cli"] + args,
-                          capture_output=True, text=True, cwd="/root/repo",
+                          capture_output=True, text=True, cwd=mock.REPO_ROOT,
                           env=env)
 
 
@@ -78,9 +77,19 @@ def test_cli_mesh_query_matches_single(world, flags):
     assert r.returncode == 0, r.stderr
     r = run_cli(base + ["-mesh", "-out", f"{tmp}/mesh_{tag}.txt"])
     assert r.returncode == 0, r.stderr
-    assert "falling back" not in r.stderr, r.stderr
     single = _lines(f"{tmp}/single_{tag}.txt")
     mesh = _lines(f"{tmp}/mesh_{tag}.txt")
     assert single == mesh
     n_mapped = sum(1 for l in single if not l.startswith("#"))
     assert n_mapped >= 100  # every read mapped (+ any per-target tables)
+
+
+def test_cli_mesh_shard_device_mismatch_is_an_error(world):
+    tmp = world
+    r = run_cli(["query", f"{tmp}/db8", f"{tmp}/r1.fa", f"{tmp}/r2.fa",
+                 "-pairfiles", "-mesh", "-out", f"{tmp}/mismatch.txt"],
+                extra_env={"XLA_FLAGS":
+                           "--xla_force_host_platform_device_count=4"})
+    assert r.returncode != 0
+    assert "one database shard per device" in r.stderr, r.stderr[-2000:]
+    assert not os.path.exists(f"{tmp}/mismatch.txt")

@@ -1,4 +1,4 @@
-"""At-scale multichip correctness (VERDICT r4 item 6): the 8-virtual-device
+"""At-scale multichip correctness: the 8-virtual-device
 sharded engine must reproduce the fused single-table engine PER READ on a
 world big enough to exercise real shard sizes — strain-sharing + a repeat
 element (two-tier overflow), >=10k reads, with the full output flag

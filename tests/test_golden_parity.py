@@ -94,12 +94,9 @@ def _stat_lines(path):
 
 
 def _run_cli(args, env_extra=None):
-    env = dict(os.environ, METACACHE_PLATFORM="cpu",
-               PYTHONPATH="/root/repo")
-    if env_extra:
-        env.update(env_extra)
+    env = mock.cli_env(**(env_extra or {}))
     return run([sys.executable, "-m", "metacache_tpu.cli"] + args,
-               cwd="/root/repo", env=env)
+               cwd=mock.REPO_ROOT, env=env)
 
 
 class TestGoldenParity:

@@ -32,9 +32,8 @@ def run(cmd, **kw):
 
 
 def _run_cli(args):
-    env = dict(os.environ, METACACHE_PLATFORM="cpu", PYTHONPATH="/root/repo")
     return run([sys.executable, "-m", "metacache_tpu.cli"] + args,
-               cwd="/root/repo", env=env)
+               cwd=mock.REPO_ROOT, env=mock.cli_env())
 
 
 @pytest.fixture(scope="module")

@@ -2,14 +2,16 @@
 
 The 13-bit value split in ops/candidates._onehot_map and
 ops/classify_op._lineage_rows is only exact if the dot runs in full f32:
-the TPU's default precision lowers f32 dots to single-pass bf16, which
-rounds values above 2^8 (ADVICE r4, fixed with Precision.HIGHEST). These
-tests use table entries spanning the full permitted range (< 2^26) so a
-precision regression fails loudly — including under the
-METACACHE_TPU_PARITY=1 real-accelerator rerun (tests/README.md).
+a GPU may run an f32 dot in TF32 (exact only for integers below 2^11), and
+bf16 passes are exact only to 2^8, unless the dot asks for
+Precision.HIGHEST. The CPU backend ignores the precision, so besides the
+value tests (which also run on a GPU, tests/test_gpu_stages.py) the dots'
+precision is checked in the jaxpr.
 """
-import numpy as np
+import jax
 import jax.numpy as jnp
+import numpy as np
+import pytest
 
 from metacache_tpu.ops.candidates import _onehot_map
 from metacache_tpu.ops.classify_op import _lineage_rows
@@ -38,3 +40,19 @@ def test_lineage_rows_exact_large_values():
     tax = RNG.integers(0, N, size=64).astype(np.int32)
     got = np.asarray(_lineage_rows(jnp.asarray(lineage), jnp.asarray(tax)))
     np.testing.assert_array_equal(got, lineage[tax])
+
+
+@pytest.mark.parametrize("fn,args", [
+    pytest.param(_onehot_map, (np.arange(64, dtype=np.int32),
+                               np.zeros((4, 8), np.int32)), id="onehot_map"),
+    pytest.param(_lineage_rows, (np.zeros((64, 8), np.int32),
+                                 np.zeros(16, np.int32)), id="lineage_rows"),
+])
+def test_onehot_dots_request_highest_precision(fn, args):
+    jaxpr = jax.make_jaxpr(fn)(*map(jnp.asarray, args))
+    dots = [e for e in jaxpr.jaxpr.eqns if e.primitive.name == "dot_general"]
+    assert len(dots) == 2          # the lo and hi 13-bit chunks
+    for e in dots:
+        prec = e.params["precision"]
+        assert prec is not None and all(
+            p == jax.lax.Precision.HIGHEST for p in prec), prec

@@ -11,10 +11,9 @@ from tests import util_mockdata as mock
 
 
 def run_cli(args):
-    env = dict(os.environ, METACACHE_PLATFORM="cpu", PYTHONPATH="/root/repo")
     return subprocess.run([sys.executable, "-m", "metacache_tpu.cli"] + args,
-                          capture_output=True, text=True, cwd="/root/repo",
-                          env=env)
+                          capture_output=True, text=True, cwd=mock.REPO_ROOT,
+                          env=mock.cli_env())
 
 
 @pytest.fixture(scope="module")

@@ -8,6 +8,16 @@ import numpy as np
 
 BASES = np.array(list("ACGT"))
 
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def cli_env(**extra) -> dict:
+    """Environment for a CLI child process on the CPU backend, importing
+    this checkout's package."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO_ROOT)
+    env.update(extra)
+    return env
+
 
 def random_genome(rng, n: int) -> str:
     return "".join(BASES[rng.integers(0, 4, size=n)])

@@ -2,7 +2,7 @@
 
 These are intentionally scalar/naive — line-for-line re-statements of the
 semantics in src/candidates.h and src/classification.cpp — so the
-vectorized TPU ops can be validated against them on random inputs.
+vectorized device ops can be validated against them on random inputs.
 """
 from __future__ import annotations
 
@@ -121,3 +121,44 @@ def oracle_classify(cands: List[dict], ranked_lineage, hits_min: int,
         else:
             break
     return cur if rank_of_first(cur) <= highest_rank else 0
+
+
+def oracle_sketch_batch(codes, lens, k: int, sketch_size: int):
+    """single_function_unique_min_hasher (src/hash_dna.h:50-182) over a
+    batch of windows, in plain numpy: the sketch_size smallest distinct
+    thomas_mueller hashes (src/hash_int.h:39-45) of the unambiguous
+    canonical k-mers of each window.
+
+    codes: [B, W] uint8 (0..3 = ACGT, anything else ambiguous);
+    lens: [B] valid lengths. Returns [B, sketch_size] uint32, ascending,
+    padded with 0xFFFFFFFF. The reverse complement is built from the
+    complemented codes read backwards, independent of the device's
+    bit-twiddled version."""
+    import numpy as np
+    codes = np.asarray(codes)
+    B, W = codes.shape
+    n = W - k + 1
+    fwd = np.zeros((B, n), np.uint64)
+    rev = np.zeros((B, n), np.uint64)
+    ambig = np.zeros((B, n), bool)
+    for j in range(k):
+        c = codes[:, j:j + n].astype(np.uint64)
+        ambig |= codes[:, j:j + n] > 3
+        fwd = (fwd << np.uint64(2)) | (c & np.uint64(3))
+        rev |= (np.uint64(3) - (c & np.uint64(3))) << np.uint64(2 * j)
+    kmer = np.minimum(fwd, rev)
+    m32 = np.uint64(0xFFFFFFFF)
+    x = kmer
+    for _ in range(2):
+        x = (((x >> np.uint64(16)) ^ x) * np.uint64(0x45D9F3B)) & m32
+    x = (x >> np.uint64(16)) ^ x
+    valid = (np.arange(n)[None, :] + k <= np.asarray(lens)[:, None]) & ~ambig
+    h = np.where(valid, x, m32)
+    h = np.sort(h, axis=1)
+    dup = np.zeros_like(valid)
+    dup[:, 1:] = h[:, 1:] == h[:, :-1]
+    h = np.sort(np.where(dup, m32, h), axis=1)
+    out = np.full((B, sketch_size), m32, np.uint64)
+    w = min(sketch_size, n)
+    out[:, :w] = h[:, :w]
+    return out.astype(np.uint32)

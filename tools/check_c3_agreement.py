@@ -1,11 +1,12 @@
 #!/usr/bin/env python
 """Per-read classification agreement vs the reference binary at config-3
-scale (5 Gbp DB, 1M pairs) — VERDICT r4 item 3.
+scale (5 Gbp DB, 1M pairs).
 
-Usage: python tools/check_c3_agreement.py [ref_out] [tpu_out]
+Usage: python tools/check_c3_agreement.py <ref_out> <our_out>
 Both files are per-read mapping outputs ("header\t|\trank:name" lines).
 Ours is produced by the CLI on the SAME world; the reference's by
-/tmp/refbuild/metacache_mpi2 on its own 2-rank build of the same world.
+metacache_mpi2 (tools/build_reference.sh) on its own 2-rank build of the
+same world.
 
 Known, documented divergence sources (SURVEY §4): the 254-per-feature
 location cap is applied PER SHARD in both systems, but the shard split
@@ -30,14 +31,12 @@ def load(path):
 
 
 def main():
-    ref_path = sys.argv[1] if len(sys.argv) > 1 else \
-        "/tmp/mc_bench_c3/ref_out.txt"
-    tpu_path = sys.argv[2] if len(sys.argv) > 2 else \
-        "/tmp/mc_bench_c3/tpu_out.txt"
-    ref = load(ref_path)
-    tpu = load(tpu_path)
-    common = set(ref) & set(tpu)
-    print(f"reference lines: {len(ref)}  ours: {len(tpu)}  "
+    if len(sys.argv) != 3:
+        sys.exit(__doc__)
+    ref = load(sys.argv[1])
+    ours = load(sys.argv[2])
+    common = set(ref) & set(ours)
+    print(f"reference lines: {len(ref)}  ours: {len(ours)}  "
           f"common headers: {len(common)}")
     if not common:
         print("NO COMMON READS — header mismatch?")
@@ -45,10 +44,10 @@ def main():
     agree = 0
     diffs = []
     for h in common:
-        if ref[h] == tpu[h]:
+        if ref[h] == ours[h]:
             agree += 1
         elif len(diffs) < 20:
-            diffs.append((h, ref[h], tpu[h]))
+            diffs.append((h, ref[h], ours[h]))
     frac = agree / len(common)
     print(f"agreement: {agree}/{len(common)} = {frac:.6f}")
     for h, r, t in diffs:
